@@ -1,6 +1,6 @@
-"""hpgq — a TPU-native FASTQ QC / preprocessing engine.
+"""hpgq — an accelerator FASTQ QC / preprocessing engine.
 
-A brand-new framework (JAX / XLA / Pallas / pjit) with the capabilities of
+A brand-new framework (JAX / XLA / shard_map) with the capabilities of
 opencb-hpg/hpg-fastq (reference layout surveyed in SURVEY.md):
 
 * ``stats``  — per-file and per-position QC statistics, optional inline filter,
@@ -16,12 +16,12 @@ opencb-hpg/hpg-fastq (reference layout surveyed in SURVEY.md):
 * paired-end processing with pair-consistent discard (reference:
   ``old/main_hpg_fastq_old.c:726-728``, ``old/README:58-60``).
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
 
 * host packer turns FASTQ bytes into padded ``[B, L]`` int8 base-code and
   quality tensors (``hpgq.io``),
-* all per-read compute runs as vectorized JAX/Pallas kernels over those
-  tensors (``hpgq.kernels``),
+* all per-read compute runs as vectorized JAX kernels over those tensors,
+  fused by XLA (``hpgq.kernels``),
 * histograms/counters accumulate on-device and merge across chips/hosts with
   ``psum`` collectives over a 1-D data mesh (``hpgq.dist``),
 * byte-compatible reports are rendered host-side (``hpgq.report``),

@@ -44,7 +44,7 @@ _LOG_LEVELS = {1: logging.DEBUG, 2: logging.INFO, 3: logging.WARNING,
 
 def usage(exec_name: str) -> str:
     return (
-        "Program: %s (TPU-native high-performance tools for handling FastQ files)\n"
+        "Program: %s (high-performance tools for handling FastQ files)\n"
         "Version: %s\n"
         "\n"
         "Usage: %s <command> [options]\n"
@@ -111,8 +111,9 @@ def _add_common(p: argparse.ArgumentParser, with_windows=True, with_encoding=Fal
                    help="Verbose console logging (legacy --v, "
                         "old/main_hpg_fastq_old.c:158)")
     # legacy GPU geometry knobs (old/main_hpg_fastq_old.c:159-161):
-    # accepted for drop-in command-line parity, meaningless on a TPU mesh
-    # (scale-out is --sharded); a non-default value logs a warning
+    # accepted for drop-in command-line parity; XLA picks the launch
+    # geometry and scale-out is --sharded, so a given value only logs a
+    # warning
     p.add_argument("--gpu-num-blocks", type=int, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--gpu-num-threads", type=int, default=None,
@@ -147,8 +148,6 @@ def _add_common(p: argparse.ArgumentParser, with_windows=True, with_encoding=Fal
                    help="Data-parallel over all devices (multi-chip/"
                         "multi-host mesh; every command, single- and "
                         "paired-end)")
-    p.add_argument("--no-pallas", dest="use_pallas", action="store_false",
-                   help="Disable Pallas kernels (use the XLA-fused jnp path)")
 
 
 def _parse_conf(path: str) -> dict:
@@ -297,7 +296,6 @@ def _ns_to_opts(ns: argparse.Namespace, cls):
     opts.checkpoint_path = ns.checkpoint_path
     opts.checkpoint_every = ns.checkpoint_every
     opts.profile_dir = ns.profile_dir
-    opts.use_pallas = ns.use_pallas
     opts.sharded = getattr(ns, "sharded", False)
 
     begin_nt = getattr(ns, "start_quality_nt", 0)
@@ -323,7 +321,7 @@ def _ns_to_opts(ns: argparse.Namespace, cls):
     for knob in ("gpu_num_blocks", "gpu_num_threads", "gpu_num_devices"):
         if getattr(ns, knob, None) is not None:
             logging.getLogger("hpgq").warning(
-                "--%s has no effect on a TPU mesh (scale-out is --sharded)",
+                "--%s has no effect (scale-out is --sharded)",
                 knob.replace("_", "-"),
             )
     return opts

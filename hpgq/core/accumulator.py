@@ -1,6 +1,6 @@
 """Device-side stats accumulation with overflow-safe host folding.
 
-Device accumulators are int32 (fast TPU vector adds).  The host folds them
+Device accumulators are int32 (x64 is off).  The host folds them
 into the int64 :class:`~hpgq.core.counters.StatsCounters` every
 ``flush_every`` batches — chosen so no int32 counter can overflow within a
 flush window (worst case is ``acc_length``/``qual_per_nt`` at
@@ -26,20 +26,17 @@ from ..kernels.stats_jnp import (
 
 
 def resolve_wire(wire=None):
-    """'bitpack' | 'fused4' | 'pack4' | None.  Auto: bitpack on TPU (one
-    RPC per batch, 3-bit codes + 7-bit quals — the minimum-byte format for
-    a bandwidth-/latency-bound host->device link), off on CPU.  Env
-    override: HPGQ_WIRE=bitpack|fused4|pack4|off."""
+    """'bitpack' | 'fused4' | 'pack4' | None.  Auto: off (the packed
+    arrays ship as they are).  Env override:
+    HPGQ_WIRE=bitpack|fused4|pack4|off."""
     import os
 
-    # precedence: explicit format > HPGQ_WIRE env > backend auto-default
+    # precedence: explicit format > HPGQ_WIRE env > off
     # ('auto' — the DeviceAccumulator default — must NOT shadow the env)
     w = wire
     if w in (None, "auto"):
         w = os.environ.get("HPGQ_WIRE", "auto")
-    if w == "auto":
-        return "bitpack" if jax.default_backend() == "tpu" else None
-    if w in ("off", "none", ""):
+    if w in ("auto", "off", "none", ""):
         return None
     if w not in ("bitpack", "fused4", "pack4"):
         raise ValueError(
@@ -75,7 +72,6 @@ class DeviceAccumulator:
         batch_reads: int = 16384,
         device=None,
         jit: bool = True,
-        engine=None,
         wire="auto",
     ):
         self.lcap = lcap
@@ -86,11 +82,10 @@ class DeviceAccumulator:
         self.counters = StatsCounters(phred=phred, kmers_on=kmers_on)
         self.counters.filter_on = self.filter_on
         self.counters.ensure_length(lcap)
-        self.engine = engine
         self._crit = crit
         self.wire = resolve_wire(wire)
         self._step = make_stats_step(lcap, phred, kmers_on, crit, jit=jit,
-                                     engine=engine, wire=self.wire)
+                                     wire=self.wire)
         self._acc = zero_partials(lcap, kmers_on)
         if device is not None:
             self._acc = jax.device_put(self._acc, device)
@@ -136,7 +131,7 @@ class DeviceAccumulator:
 
         buf, exc, pal, n_valid, Lu = payload
         step = make_stats_step2u(self.lcap, self.phred, self.kmers_on,
-                                 self._crit, Lu, engine=self.engine)
+                                 self._crit, Lu)
         self._acc = step(self._acc, buf, exc, pal, n_valid)
         self._since_flush += 1
         if self._since_flush >= self.flush_every:

@@ -1,6 +1,6 @@
 """Global statistics counters.
 
-The TPU-native replacement for the reference's ``stats_counters_t``
+The replacement for the reference's ``stats_counters_t``
 (``src/stats_fastq.h:35-73``): where the reference keeps 10 int→int khash
 maps mutated serially by the consumer thread (``src/stats_fastq.c:257-417``),
 we keep *dense* integer tensors — positions and histogram keys are small

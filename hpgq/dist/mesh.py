@@ -8,7 +8,8 @@ is a serial consumer thread (P5).  Here:
   a ``[B, L]`` shard of the packed batch (P4),
 * each device accumulates its own partials locally inside ``shard_map`` —
   zero per-batch collectives,
-* the merge is one ``psum``/``pmin``/``pmax`` over ICI at the end of the run
+* the merge is one ``psum``/``pmin``/``pmax`` at the end of the run (NCCL
+  between the cards of one host)
   (P5 as a collective instead of a thread), and across hosts rides the same
   collective via ``jax.distributed``.
 
@@ -32,12 +33,7 @@ from ..kernels import stats_jnp
 from ..core.accumulator import fold_partials
 from ..core.counters import StatsCounters
 
-try:  # jax>=0.4.35 moved shard_map out of experimental
-    from jax import shard_map as _shard_map_mod  # noqa: F401
-
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+shard_map = jax.shard_map
 
 
 def data_mesh(devices=None) -> Mesh:
@@ -48,7 +44,7 @@ def data_mesh(devices=None) -> Mesh:
 
 def initialize_distributed() -> int:
     """Multi-host bootstrap (jax.distributed) when launched under a
-    coordinator (JAX_COORDINATOR_ADDRESS / megascale env); returns
+    coordinator (JAX_COORDINATOR_ADDRESS / COORDINATOR_ADDRESS); returns
     process_index.
 
     Must not query the backend before initialize(): any jax call that
@@ -127,15 +123,12 @@ def make_sharded_stats_step(
     round 4 — it dominated the multihost per-pass cost).
     """
     ck = ("stats", mesh, lcap, phred, kmers_on, _crit_cache_key(crit),
-          donate, wire, stats_jnp.resolve_engine(None))
+          donate, wire)
     try:
         if ck in _STEP_CACHE:
             return _STEP_CACHE[ck]
     except TypeError:  # unhashable criteria subclass: build uncached
         ck = None
-    # engine resolves per backend (pallas on TPU, jnp elsewhere): the fused
-    # pallas kernel runs per device inside shard_map — its out_shape structs
-    # carry vma=('data',) so jax's vma typing accepts the manual axis
     step = stats_jnp.make_stats_step(lcap, phred, kmers_on, crit, jit=False,
                                      vary_axis="data")
     acc_spec = jax.tree_util.tree_map(lambda _: P("data"), stats_jnp.zero_partials(lcap, kmers_on))
@@ -224,9 +217,7 @@ def make_sharded_paired_stats_step(
     steady-state collectives; pair pass/fail tallies accumulate in mate-1's
     device partials (num_passed/num_failed leaves), psum'd by the final
     collective merge.  Replaces the sharded-paired loop's 3 dispatches per
-    step (pair verdict + one feed per mate) — dispatch latency is
-    first-order on tunneled links, and on real ICI this halves per-step
-    launch overhead.
+    step (pair verdict + one feed per mate).
 
     ``wire='bitpack'``/``'fused4'``: ``inN`` is one global uint8 wire
     buffer ``[ndev*B, W]`` sharded on 'data', decoded per device (wire
@@ -238,7 +229,7 @@ def make_sharded_paired_stats_step(
     session was the dominant multihost per-pass cost)."""
     wire = wire if wire in ("bitpack", "fused4") else None
     ck = ("paired", mesh, lcap, phred, kmers_on, _crit_cache_key(crit),
-          donate, wire, stats_jnp.resolve_engine(None))
+          donate, wire)
     try:
         if ck in _STEP_CACHE:
             return _STEP_CACHE[ck]
@@ -277,7 +268,7 @@ _MERGE_CACHE: dict = {}
 def make_collective_merge(mesh: Mesh, lcap: int, kmers_on: bool = False):
     """psum/pmin/pmax the sharded accumulator into replicated totals —
     the reference's consumer merge (src/stats_fastq.c:257-417) as one
-    collective over ICI/DCN.  Cached per (mesh, lcap, kmers_on) — rebuilt
+    collective.  Cached per (mesh, lcap, kmers_on) — rebuilt
     closures would retrace/recompile on every flush."""
     ck = (mesh, lcap, kmers_on)
     if ck in _MERGE_CACHE:
@@ -330,7 +321,7 @@ def _align_to_record(f, pos: int, scan_limit: int = 1 << 30) -> int:
     ``scan_limit`` (1 GiB) only guards against scanning a non-FASTQ file
     forever — a shard boundary inside an ultra-long-read record must widen
     the scan past that record, so the limit sits far above any real read
-    length (VERDICT r1 #10).
+    length.
     """
     if pos == 0:
         return 0

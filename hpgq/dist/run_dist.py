@@ -98,7 +98,7 @@ class ShardedStatsSession:
         # adaptive bitpack tiers (2q palette / 6-bit / 7-bit): the per-step
         # shape vote carries the element-wise-max tier, so every rank
         # dispatches the same wire width from data-dependent quals (the
-        # round-3 single-host-only restriction lifted — VERDICT r3 #6).
+        # round-3 single-host-only restriction lifted).
         # All ranks must share the HPGQ_WIRE6/HPGQ_QPAL environment.
         from ..io.packer import bitwire_tier_floor
 

@@ -1,17 +1,23 @@
 """Native (C++) packer: build-on-demand + ctypes bindings.
 
-The shared library is compiled from ``packer.cpp`` on first use (g++ -O3
--fopenmp) and cached next to the source; if no compiler is available the
-callers fall back to the pure-numpy packer transparently
-(``hpgq.io.packer.pack_block``).  Bindings use ctypes — this toolchain has
-no pybind11 (see repo environment notes).
+The shared library is compiled from ``packer.cpp`` at first use (g++ -O3
+-fopenmp -march=native) into ``build/<key>/_packer.so`` beside the source,
+where ``<key>`` hashes the source, the compiler command and the host CPU
+(:func:`build_key`).  A tree copied to another host therefore rebuilds from
+the committed source instead of loading a library built for another CPU.
+``python -m hpgq.io.native`` builds it ahead of time.  Without a compiler
+the callers fall back to the pure-numpy packer
+(``hpgq.io.packer.pack_block``).  Bindings use ctypes, so the build needs
+nothing beyond g++.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
+import platform
 import subprocess
 import tempfile
 import threading
@@ -22,40 +28,75 @@ log = logging.getLogger(__name__)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "packer.cpp")
-_SO = os.path.join(_HERE, "_packer.so")
+BUILD_ROOT = os.path.join(_HERE, "build")
+_CMD = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
+        "-march=native"]
+# -march=native can be unsupported on exotic hosts; the plain build follows
+_COMMANDS = (_CMD, [a for a in _CMD if a != "-march=native"])
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+loaded_path = None  # the library get_lib() loaded, once it has
 
 
-def _build() -> str:
-    """Compile packer.cpp -> _packer.so (atomic rename, race-safe)."""
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_HERE)
-    os.close(fd)
-    cmd = [
-        "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
-        "-march=native", _SRC, "-o", tmp,
-    ]
+def _host_cpu() -> str:
+    """What -march=native compiles for: the CPU model and feature flags."""
+    keep = ("model name", "flags", "Features", "CPU part")
+    lines = []
     try:
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        except (subprocess.SubprocessError, FileNotFoundError):
-            # -march=native can be unsupported on exotic hosts; retry plain
-            subprocess.run(
-                [a for a in cmd if a != "-march=native"],
-                check=True, capture_output=True, timeout=120,
-            )
-        os.replace(tmp, _SO)
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # first processor only
+                if line.split(":", 1)[0].strip() in keep:
+                    lines.append(line.strip())
+    except OSError:
+        pass
+    return platform.machine() + "\n" + "\n".join(lines)
+
+
+def build_key(cmd=_CMD, src: str = _SRC, cpu: str = None) -> str:
+    """Hash of the source, the compiler command and the host CPU."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(cmd).encode())
+    h.update((_host_cpu() if cpu is None else cpu).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(cmd=_CMD) -> str:
+    return os.path.join(BUILD_ROOT, build_key(cmd), "_packer.so")
+
+
+def _build(cmd, so: str) -> None:
+    """Compile packer.cpp -> ``so`` (atomic rename, race-safe)."""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
+    os.close(fd)
+    try:
+        subprocess.run(cmd + [_SRC, "-o", tmp], check=True,
+                       capture_output=True, timeout=120)
+        os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return _SO
+
+
+def _load(so: str):
+    lib = ctypes.CDLL(so)
+    lib.hpgq_abi_version.restype = ctypes.c_int
+    if lib.hpgq_abi_version() != _ABI:
+        raise RuntimeError("native packer ABI %d != expected %d"
+                           % (lib.hpgq_abi_version(), _ABI))
+    _bind(lib)
+    return lib
 
 
 def get_lib():
     """The loaded native library, or None if unavailable."""
-    global _lib, _tried
+    global _lib, _tried, loaded_path
     if _lib is not None or _tried:
         return _lib
     with _lock:
@@ -64,46 +105,19 @@ def get_lib():
         _tried = True
         if os.environ.get("HPGQ_NO_NATIVE"):
             return None
-        def _load():
-            lib = ctypes.CDLL(_SO)
-            lib.hpgq_abi_version.restype = ctypes.c_int
-            return lib
-
-        try:
-            if not os.path.exists(_SRC):
-                # prebuilt .so shipped without source: usable iff the ABI
-                # matches (the rebuild path below is unavailable)
-                if not os.path.exists(_SO):
-                    raise FileNotFoundError(_SRC)
-                lib = _load()
-                if lib.hpgq_abi_version() != _ABI:
-                    raise RuntimeError(
-                        "prebuilt native packer ABI %d != expected %d and "
-                        "packer.cpp is absent" % (lib.hpgq_abi_version(), _ABI)
-                    )
-                _bind(lib)
-                _lib = lib
+        err = None
+        for cmd in _COMMANDS:
+            try:
+                so = library_path(cmd)
+                if not os.path.exists(so):
+                    _build(cmd, so)
+                _lib = _load(so)
+                loaded_path = so
                 return _lib
-            if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-                _build()
-            lib = _load()
-            if lib.hpgq_abi_version() != _ABI:
-                # a stale .so can out-date the mtime check (copied build
-                # dirs, timestamp-preserving extraction): rebuild once, and
-                # fall back to numpy rather than crash if still mismatched
-                _build()
-                lib = _load()
-                if lib.hpgq_abi_version() != _ABI:
-                    raise RuntimeError(
-                        "native packer ABI %d != expected %d"
-                        % (lib.hpgq_abi_version(), _ABI)
-                    )
-            _bind(lib)
-        except Exception as e:  # no compiler / load / symbol failure
-            log.info("native packer unavailable (%s); using numpy packer", e)
-            return None
-        _lib = lib
-        return _lib
+            except Exception as e:  # no compiler / load / symbol failure
+                err = e
+        log.info("native packer unavailable (%s); using numpy packer", err)
+        return None
 
 
 _ABI = 8  # must match hpgq_abi_version() in packer.cpp

@@ -1,6 +1,6 @@
 // hpgq native packer: FASTQ record indexing + padded-tensor packing.
 //
-// TPU-native replacement for the reference's native FASTQ parser layer
+// Replacement for the reference's native FASTQ parser layer
 // (fastq_fread_se / fastq_read_t, call sites src/stats_fastq.c:183,353-360):
 // instead of one heap object per read, one pass over a byte chunk yields
 // line-offset tables, and a second OpenMP-parallel pass translates bases

@@ -77,8 +77,8 @@ def wire_len(max_len: int, lcap: int) -> int:
     all-padding columns per read (~17% of the bitpack row).  Rounded to
     ``max(8, lcap // 16)`` so the distinct wire shapes per lcap stay ≤16
     (bitpack needs L % 8 == 0; jit compiles per shape).  Long-read caps
-    (> 1024) keep the full width — the blockwise-L kernel chunks the wire
-    per L-block and the relative saving is negligible there."""
+    (> 1024) keep the full width: the relative saving is negligible
+    there."""
     if lcap > 1024:
         return lcap
     g = max(8, lcap // 16)
@@ -691,9 +691,8 @@ def pack_block_wire(block, wire: str, max_len: int,
 def pack_block_bitwire(block, max_len: int, pad_reads_to: int = 0) -> np.ndarray:
     """Pack a RecordBlock straight into the bitpack wire buffer
     (uint8 ``[nrows, 3L/8 + 7L/8 + 8]``, ``max_len % 8 == 0``): 3-bit base
-    codes + 7-bit ASCII quals, ~31% fewer wire bytes than fused4 — the
-    preferred format when the host->device link is the pipeline bottleneck
-    (remote/tunneled TPU)."""
+    codes + 7-bit ASCII quals, ~31% fewer wire bytes than fused4 — for a
+    run whose host->device link is the pipeline bottleneck."""
     assert int(max_len) % 8 == 0, max_len
     return _pack_wire_dispatch(block, max_len, pad_reads_to,
                                "pack_bitwire", wire_bitpack_np)

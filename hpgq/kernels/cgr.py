@@ -1,5 +1,5 @@
-"""Chaos-game-representation kernel: windowed bit codes + MXU outer-product
-histogram.
+"""Chaos-game-representation kernel: windowed bit codes + one-hot matmul
+outer-product histogram.
 
 The reference fills its ``2^k x 2^k`` CGR tables with a sequential f64
 iterated-function-system per nucleotide (``old/chaos_game.c:165-267``).  That
@@ -37,8 +37,9 @@ PARITY.md quantifies the reach (zero on ACGTN-only corpora).
 
 So per batch the kernel is: sliding-window x/y bit codes (valid iff all k
 bases in {A,C,G,T} and the window fits in the read), then a 2-D histogram
-accumulated as ``onehot_x^T @ onehot_y`` chunked matmuls — the TPU-native
-scatter-add: the MXU does 2*N*dim^2 flops instead of N serialized scatters.
+accumulated as ``onehot_x^T @ onehot_y`` chunked matmuls, which XLA hands
+to the card's matrix units: 2*N*dim^2 flops instead of N colliding
+scatters.
 The quality table uses the same matmul with the x one-hot scaled by the
 window's quality sum minus ``phred*k`` (``old/chaos_game.c:253-257``).
 
@@ -100,10 +101,10 @@ def window_qsums(quals, k: int):
 def cgr_batch_tables(codes, quals, lens, valid, k: int, phred: int,
                      chunk: int = CHUNK, vary_axis=None):
     """(table_seq i32, table_q_hi i32, table_q_lo i32, words i32) for one
-    packed batch — exact-integer chunked MXU accumulation.  The quality
+    packed batch — exact-integer chunked matmul accumulation.  The quality
     table is returned as two int32 limbs (true value = hi*2^16 + lo,
     recombine with :func:`combine_quality_limbs`): a single cell can exceed
-    2^31 within one batch and TPUs have no int64.
+    2^31 within one batch and x64 is off, so there is no int64 on device.
 
     ``vary_axis``: set to the mesh axis name when called inside shard_map."""
     dim = 1 << k
@@ -142,12 +143,12 @@ def cgr_batch_tables(codes, quals, lens, valid, k: int, phred: int,
         cwq = jax.lax.dynamic_slice(fwq, (sl,), (chunk,))[:, None]
         ohx = (cx == bins).astype(jnp.float32) * cok          # [chunk, dim]
         ohy = (cy == bins).astype(jnp.float32)                # [chunk, dim]
-        # Precision.HIGHEST is LOAD-BEARING: TPU DEFAULT-precision f32
-        # matmuls multiply in bf16 (8-bit mantissa).  The 0/1 seq one-hots
-        # are bf16-exact, but quality weights reach ±93k (651 for k=7) and
-        # are NOT — a 100k-read TPU soak caught table_q drifting while
-        # table_seq stayed exact.  HIGHEST keeps true-f32 products, and the
-        # chunk bound (docstring) keeps every partial integer-exact in f32.
+        # Precision.HIGHEST is LOAD-BEARING: at default precision a f32
+        # matmul may run in TF32 on the GPU (10-bit mantissa).  The 0/1
+        # seq one-hots are exact there, but quality weights reach ±93k
+        # (651 for k=7) and are not.  HIGHEST keeps true-f32 products, and
+        # the chunk bound (docstring) keeps every partial integer-exact in
+        # f32.
         seq = jax.lax.dot_general(
             ohx, ohy, (((0,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,
@@ -161,8 +162,8 @@ def cgr_batch_tables(codes, quals, lens, valid, k: int, phred: int,
         )
         # quality totals in two int32 limbs (hi*2^16 + lo): one cell can
         # exceed 2^31 within a batch (millions of low-complexity windows x
-        # weight <= ~650) and TPUs have no int64 — normalize after each
-        # chunk so lo stays in [0, 2^16)
+        # weight <= ~650) and x64 is off, so there is no int64 on device —
+        # normalize after each chunk so lo stays in [0, 2^16)
         tq_lo = tq_lo + qt.astype(jnp.int32)
         shift = tq_lo >> 16  # floor for negatives too (arithmetic shift)
         tq_hi = tq_hi + shift

@@ -161,9 +161,8 @@ class FilterCriteria:
             min_right_quality=lo(self.min_right_quality),
             max_right_quality=hi(self.max_right_quality),
             max_N=hi(self.max_N),
-            # clamp to >=0: every consumer (oracle slice, mask kernels,
-            # the blockwise kernel's analytic width) assumes non-negative
-            # positions — a negative begin would mean from-the-end in the
+            # clamp to >=0: every consumer (oracle slice, mask kernels)
+            # assumes non-negative positions — a negative begin would mean from-the-end in the
             # oracle's python slice but position 0 in the mask kernels
             begin_quality_nt=max(self.begin_quality_nt, 0),
             end_quality_nt=max(self.end_quality_nt, 0),
@@ -229,7 +228,6 @@ class CommandOptions:
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 0
     profile_dir: Optional[str] = None
-    use_pallas: bool = True
     sharded: bool = False
 
     @property

@@ -2,10 +2,11 @@
 
 Operates on packed ``[N, L]`` batches (``hpgq.io.packer``).  Serves two roles:
 
-* the **single-CPU baseline** for the ≥10× reads/s/chip target (BASELINE.md)
-  — a fair stand-in for the reference C tool's throughput class;
+* the **single-CPU baseline** that ``bench.py`` divides the engine's
+  reads/s by (BASELINE.md) — a fair stand-in for the reference C tool's
+  throughput class;
 * a **differential partner**: tested bit-identical to the per-read spec
-  (``hpgq.oracle.spec``) and to the TPU engine.
+  (``hpgq.oracle.spec``) and to the device engine.
 
 Decision tags [D1]..[D6] refer to ``hpgq.oracle.spec``.
 """

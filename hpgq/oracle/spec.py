@@ -5,7 +5,7 @@ The reference's compute kernels (``fastq_reads_stats`` / ``fastq_filter`` /
 reconstructed from call sites (SURVEY.md §2.2).  This module *is* that
 contract, written as obviously-correct per-read Python.  It is the single
 source of truth: golden tests compare both the vectorized CPU baseline
-(``hpgq.oracle.baseline``) and the TPU engine against it.
+(``hpgq.oracle.baseline``) and the device engine against it.
 
 Reconstructed-contract decisions (each marked [D#] and cross-referenced from
 docstrings):
@@ -214,7 +214,7 @@ def accumulate_read(counters: StatsCounters, seq: bytes, qual: bytes) -> None:
     # rounds the f32 quotient (round(quality_average),
     # src/stats_fastq.c:317); the two differ only when the f32 division
     # rounds across the .5 boundary (~1 in 2^24 reads) — the integer form
-    # is bit-identical across every backend (TPU f32 division is not IEEE).
+    # is bit-identical across every backend, whatever its f32 division.
     counters.quality_hist[(2 * st["qsum"] + n) // (2 * n) if n else 0] += 1
     if n:
         counters.gc_hist[(100 * (st["num_G"] + st["num_C"])) // n] += 1

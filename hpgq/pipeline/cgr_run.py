@@ -1,6 +1,6 @@
 """The `cgr` command pipeline: chaos-game genomic signature of a FASTQ.
 
-Streams packed batches through the MXU outer-product histogram kernel
+Streams packed batches through the one-hot matmul histogram kernel
 (``hpgq.kernels.cgr``), folds per-batch int32 tables into host int64 every
 batch (the tables are only ``4^k`` cells — a 128 KB transfer — and per-batch
 folding keeps any cell overflow window smaller than the reference's own

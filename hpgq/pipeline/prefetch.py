@@ -1,6 +1,6 @@
 """Background producer: overlap file read/index/pack with device compute.
 
-The TPU-native reshaping of the reference's producer->worker(s)->consumer
+The accelerator reshaping of the reference's producer->worker(s)->consumer
 thread pipeline (``workflow_run_with``, ``src/stats_fastq.c:455-465``; legacy
 bounded batch queue ``old/README:57``): a single producer thread runs the
 blocking host work (file read, newline indexing, optionally packing) ahead
@@ -31,7 +31,7 @@ def prefetched(it: Iterable, depth: int = 3, transform: Callable = None,
     pack + host->device transfer of several batches proceed concurrently
     (numpy, the native packer, and jax transfers all release the GIL), so
     the pipeline's critical path drops to max(stage) instead of sum(stages)
-    — the TPU reshaping of the reference's N worker threads
+    — the accelerator reshaping of the reference's N worker threads
     (``workflow_run_with(num_threads)``, src/stats_fastq.c:465)."""
     if workers > 1 and transform is not None:
         return _prefetched_pool(it, depth, transform, workers)

@@ -44,17 +44,15 @@ class StatsSession:
     """Streaming stats accumulation with automatic length growth."""
 
     def __init__(self, phred, kmers_on=False, crit=None, batch_reads=16384,
-                 device=None, lcap: int = 128, engine=None):
+                 device=None, lcap: int = 128):
         self.phred = phred
         self.kmers_on = kmers_on
         self.crit = crit
         self.batch_reads = batch_reads
         self.device = device
-        self.engine = engine
         self._warned_big = False
         self.acc = DeviceAccumulator(
             lcap, phred, kmers_on, crit, batch_reads=batch_reads, device=device,
-            engine=engine,
         )
 
     @property
@@ -66,7 +64,6 @@ class StatsSession:
         self.acc = DeviceAccumulator(
             lcap, self.phred, self.kmers_on, self.crit,
             batch_reads=self.batch_reads, device=self.device,
-            engine=self.engine,
         )
         self.acc.counters = old
         old.ensure_length(lcap)
@@ -138,7 +135,7 @@ class PairedStatsSession:
     """
 
     def __init__(self, phred, kmers_on=False, crit=None, batch_reads=16384,
-                 engine=None, lcap: int = 128):
+                 lcap: int = 128):
         from ..core.accumulator import resolve_wire, safe_flush_every
         from ..core.counters import StatsCounters
 
@@ -146,7 +143,6 @@ class PairedStatsSession:
         self.kmers_on = kmers_on
         self.crit = crit
         self.batch_reads = batch_reads
-        self.engine = engine
         self.wire = resolve_wire()
         self.counters1 = StatsCounters(phred=phred, kmers_on=kmers_on)
         self.counters2 = StatsCounters(phred=phred, kmers_on=kmers_on)
@@ -160,8 +156,7 @@ class PairedStatsSession:
 
         self.lcap = lcap
         self._step = make_paired_stats_step(
-            lcap, self.phred, self.kmers_on, self.crit, engine=self.engine,
-            wire=self.wire,
+            lcap, self.phred, self.kmers_on, self.crit, wire=self.wire,
         )
         self._acc1 = zero_partials(lcap, self.kmers_on)
         self._acc2 = zero_partials(lcap, self.kmers_on)
@@ -252,8 +247,7 @@ class PairedStatsSession:
             _, b1, e1, p1, nv1, L1 = in1
             _, b2, e2, p2, nv2, L2 = in2
             step = make_paired_stats_step2u(
-                self.lcap, self.phred, self.kmers_on, self.crit, L1, L2,
-                engine=self.engine)
+                self.lcap, self.phred, self.kmers_on, self.crit, L1, L2)
             self._acc1, self._acc2 = step(self._acc1, self._acc2,
                                           b1, e1, p1, nv1, b2, e2, p2, nv2)
         else:
@@ -301,11 +295,10 @@ class ShapeCachedFn:
     cache, so repeated runs with identical static config reuse the jitted
     executable instead of recompiling (jax.jit caches per function object).
 
-    When a wire format is active (bitpack/fused4 — TPU default), the block
-    is packed host-side into the single wire buffer and decoded on device,
-    so filter/edit/paired-stats verdict+trim calls ship the same minimal
-    bytes per read as the stats engine (H2D is the pipeline ceiling on
-    tunneled/remote links — see bench.py's breakdown).
+    When a wire format is active (bitpack/fused4, opt-in via HPGQ_WIRE),
+    the block is packed host-side into the single wire buffer and decoded
+    on device, so filter/edit/paired-stats verdict+trim calls ship the same
+    bytes per read as the stats engine.
 
     ``qn_ok=True`` (filter/edit verdict+trim fns) upgrades an active wire
     to a smaller layout: the 2q qual-palette bitpack (5 bits/base) when
@@ -433,9 +426,8 @@ class ShapeCachedPairFn(ShapeCachedFn):
 
     ``build_fn()`` must return ``fn(c1, q1, l1, v1, c2, q2, l2, v2)``.
     Paired filter/edit previously paid two serialized device round-trips
-    per batch (pack+H2D+dispatch+D2H each); per-dispatch latency is
-    first-order on tunneled/remote links (see PERF.md), so the pair rides
-    one call — the same reshaping that fused paired stats
+    per batch (pack+H2D+dispatch+D2H each); the pair rides one call — the
+    same reshaping that fused paired stats
     (``make_paired_stats_step``).  Mates share one (rows, wire-width)
     shape, like :class:`PairedStatsSession`."""
 

@@ -5,7 +5,7 @@ unconditionally (``src/stats_report.c:654-655``); environments without a
 gnuplot binary would previously get the ``.gnuplot`` scripts but no images.
 This module renders the same ``<prefix>.png`` (640x360, one chart per
 ``.data`` file) natively with matplotlib's Agg backend, so the image half
-of the report contract holds everywhere (VERDICT r1 #9).
+of the report contract holds everywhere.
 
 Selection: ``HPGQ_CHARTS`` = ``gnuplot`` (only shell out, reference
 behavior) | ``native`` (always matplotlib) | ``off`` | ``auto`` (default:

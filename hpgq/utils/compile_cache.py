@@ -1,29 +1,40 @@
-"""Persistent XLA compilation cache.
+"""Persistent XLA compilation cache, shared by every entry point.
 
-Kernel compiles can take minutes when the TPU is reached over a slow
-control channel; caching compiled executables on disk makes every process
-after the first start instantly.  Default location ``~/.cache/hpgq/xla``
-(override with HPGQ_COMPILE_CACHE; set to ``off`` to disable).
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module sets nothing.  Otherwise the cache lives at one fixed path inside the
+checkout, ``.bench/jax_cache`` (listed in ``.gitignore``): the directory is
+part of what lets a later process find a compiled program again.
 """
 
 from __future__ import annotations
 
 import os
 
+ENV = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".bench", "jax_cache",
+)
 
-def enable(default_dir: str = None) -> None:
-    d = os.environ.get("HPGQ_COMPILE_CACHE")
-    if d in ("off", "none", "0"):
-        return
-    if not d:
-        d = default_dir or os.path.join(
-            os.path.expanduser("~"), ".cache", "hpgq", "xla"
-        )
+
+def cache_dir() -> str:
+    """The directory the persistent cache uses in this process."""
+    return os.environ.get(ENV) or DEFAULT_DIR
+
+
+def enable() -> str:
+    """Turn the persistent cache on (a no-op where ``JAX_COMPILATION_CACHE_DIR``
+    is set); returns the directory in use ("" when none can be made)."""
+    if os.environ.get(ENV):
+        return os.environ[ENV]
+    import jax
+
     try:
-        import jax
-
-        os.makedirs(d, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", d)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # cache is an optimization; never fail the run
-        pass
+        os.makedirs(DEFAULT_DIR, exist_ok=True)
+    except OSError:  # read-only checkout: run uncached rather than fail
+        return ""
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    # keep every program: on the GPU most of a command's programs compile
+    # in under a second each, yet together they are most of a cold run
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    return DEFAULT_DIR

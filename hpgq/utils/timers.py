@@ -1,5 +1,5 @@
 """Per-stage wall-clock timers (the reference's --t instrumentation,
-``old/main_hpg_fastq_old.c:49-80,741-763``) adapted to the TPU pipeline's
+``old/main_hpg_fastq_old.c:49-80,741-763``) adapted to the device pipeline's
 stages: read, pack, h2d (device transfer+dispatch), compute (device sync),
 write, reporting."""
 

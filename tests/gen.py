@@ -61,3 +61,46 @@ def make_fastq(path, n: int, **kw):
     records = make_records(n, **kw)
     write_fastq(path, records, gz=gz)
     return records
+
+
+def write_fastq_bulk(path, n: int, min_len: int = 60, max_len: int = 60,
+                     seed: int = 0, n_prob: float = 0.0, phred: int = 33,
+                     min_q: int = 2, max_q: int = 41, qual_bins=None,
+                     chunk: int = 65536):
+    """:func:`make_fastq`'s record layout for large corpora, drawn in bulk:
+    one generator call per chunk of reads instead of several per read, and
+    nothing kept in memory beyond a chunk.  (The draws differ from
+    :func:`make_records` for the same seed.)  Returns the byte offset just
+    past each record, int64 ``[n]``."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(ALPHABET, dtype=np.uint8)
+    bins = None if qual_bins is None else np.asarray(qual_bins, np.int64)
+    ends = np.empty(n, dtype=np.int64)
+    pos = 0
+    with open(path, "wb") as f:
+        for lo in range(0, n, chunk):
+            m = min(chunk, n - lo)
+            lens = rng.integers(min_len, max_len + 1, size=m)
+            total = int(lens.sum())
+            seq = alphabet[rng.integers(0, 4, size=total, dtype=np.uint8)]
+            if n_prob > 0:
+                seq[rng.random(total, dtype=np.float32) < n_prob] = ord("N")
+            if bins is not None:
+                q = bins[rng.integers(0, len(bins), size=total,
+                                      dtype=np.uint8)] + phred
+            else:
+                q = rng.integers(min_q, max_q + 1, size=total,
+                                 dtype=np.uint8) + phred
+            seq_b = seq.tobytes()
+            qual_b = q.astype(np.uint8).tobytes()
+            cut = np.concatenate([[0], np.cumsum(lens)])
+            parts = []
+            for i in range(m):
+                a, b = cut[i], cut[i + 1]
+                rec = (b"@read_%d some description\n" % (lo + i) + seq_b[a:b]
+                       + b"\n+\n" + qual_b[a:b] + b"\n")
+                parts.append(rec)
+                pos += len(rec)
+                ends[lo + i] = pos
+            f.write(b"".join(parts))
+    return ends

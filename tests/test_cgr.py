@@ -200,8 +200,8 @@ def test_cgr_against_oracle_from_file(tmp_path):
 
 
 def test_cgr_session_through_wire(tmp_path, monkeypatch):
-    """CgrSession through the wire formats == plain-array session (the TPU
-    H2D path; tables and word count exactly equal)."""
+    """CgrSession through the wire formats == plain-array session (the
+    opt-in HPGQ_WIRE H2D path; tables and word count exactly equal)."""
     from hpgq.io.fastq import FastqReader
     from hpgq.pipeline.cgr_run import CgrSession
 

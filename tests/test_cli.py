@@ -374,7 +374,7 @@ def test_paired_stats_filter_through_wire(tmp_path, monkeypatch):
 
 def test_filter_edit_through_wire(tmp_path, monkeypatch):
     """filter/edit verdict+trim kernels through the wire formats (the
-    ShapeCachedFn wire path, used on TPU) == the plain-array path,
+    opt-in ShapeCachedFn wire path) == the plain-array path,
     byte-identical outputs."""
     from gen import make_fastq
     from hpgq.options import EditOptions, FilterOptions
@@ -678,12 +678,12 @@ def test_reader_batch_auto(monkeypatch):
     from hpgq.pipeline import run as runmod
 
     o = StatsOptions()  # defaults: batch_size=10000, device_batch_reads=0
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert runmod._reader_batch(o) == 131072
     assert runmod._batch_reads(o) == 131072
     monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
     assert runmod._reader_batch(o) == 10000
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     o.batch_size_set = True  # explicit --batch-size 10000: honored exactly
     assert runmod._reader_batch(o) == 10000
     o.batch_size_set = False

@@ -59,33 +59,6 @@ def test_sharded_equals_single_device(tmp_path, with_filter):
     assert got.num_failed == ref.num_failed
 
 
-def test_sharded_step_interpret_engine_downgrade(tmp_path, monkeypatch):
-    """HPGQ_ENGINE=pallas_interpret under shard_map: interpret-mode kernel
-    bodies are evaluated as plain jax ops, which strict vma typing rejects —
-    make_stats_step must downgrade to jnp (real-TPU pallas runs as-is, its
-    Mosaic body is opaque; validated on-device by tools/validate_device.py's
-    sharded check).  Results must equal the default-engine sharded step."""
-    path, (codes, quals, lens, valid) = _packed(
-        tmp_path, min_len=30, max_len=60, n_prob=0.02, seed=52
-    )
-    lcap = codes.shape[1]
-    mesh = data_mesh()
-    sharding = NamedSharding(mesh, P("data"))
-    batch = [jax.device_put(x, sharding) for x in (codes, quals, lens, valid)]
-
-    def run():
-        acc = zero_sharded_partials(mesh, lcap, kmers_on=True)
-        step = make_sharded_stats_step(mesh, lcap, phred=33, kmers_on=True,
-                                       crit=CRIT)
-        acc = step(acc, *batch)
-        return sharded_counters(acc, mesh, lcap, phred=33, kmers_on=True)
-
-    ref = run()
-    monkeypatch.setenv("HPGQ_ENGINE", "pallas_interpret")
-    got = run()
-    assert got.equals(ref)
-
-
 def test_byte_range_shard_invariance(tmp_path):
     """stats(file) == merge(stats(byte-range shard_i)) for any sharding."""
     path = str(tmp_path / "a.fq")
@@ -217,7 +190,7 @@ def test_run_stats_sharded_through_wire(tmp_path, monkeypatch):
 
 
 def test_sharded_wire_tiers(tmp_path, monkeypatch):
-    """Adaptive bitpack tiers in the sharded sessions (VERDICT r3 #6):
+    """Adaptive bitpack tiers in the sharded sessions:
     binned quals ride the 2q palette tier, unbinned the 6-bit tier, and a
     mixed corpus escalates mid-run (different wire widths across steps)
     — every variant must equal the wire-off sharded run on the 8-device

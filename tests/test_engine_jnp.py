@@ -201,8 +201,8 @@ def test_wire_pack4_roundtrip_and_step():
 
 
 def test_long_read_growth_and_engine_guard(tmp_path):
-    """A 6000-bp read grows the session past the pallas VMEM bound; the
-    engine transparently falls back to jnp and stays correct."""
+    """A 6000-bp read grows the session's length bucket mid-run; the
+    rebuilt step stays correct."""
     import numpy as np
 
     from gen import make_records, write_fastq
@@ -305,13 +305,12 @@ def test_wire_bitpack_roundtrip_and_step():
 
 def test_quality_key_half_rounds_up_everywhere():
     """Reads whose rational mean quality is exactly k+0.5 must bin to k+1
-    (round-half-up) in the spec, numpy baseline, jnp and pallas engines —
-    the [D1] integer-key formula is backend-exact (TPU f32 division isn't)."""
+    (round-half-up) in the spec, numpy baseline and jnp engine — the [D1]
+    integer-key formula is backend-exact whatever the f32 division."""
     import numpy as np
 
     from hpgq.core.counters import StatsCounters
     from hpgq.kernels import stats_jnp
-    from hpgq.kernels.stats_pallas import batch_partials_pallas
     from hpgq.oracle import baseline as ob, spec
 
     # qual bytes 70 and 71 -> qsum 141, len 2 -> mean 70.5 -> key 71
@@ -331,10 +330,6 @@ def test_quality_key_half_rounds_up_everywhere():
 
     p = stats_jnp.batch_partials(codes, quals, lens, valid, 128, 33)
     assert int(np.asarray(p["quality_hist"])[71]) == 4
-
-    pp = batch_partials_pallas(codes, quals, lens, valid, 128, 33, None,
-                               interpret=True)
-    assert int(np.asarray(pp["quality_hist"])[71]) == 4
 
 
 def test_verdicts_long_read_no_overflow():
@@ -365,29 +360,6 @@ def test_verdicts_long_read_no_overflow():
     seq = b"A" * L
     assert spec.filter_verdict(seq, bytes([63]) * L, crit.substituted(), 33)
     assert not spec.filter_verdict(seq, bytes([32]) * L, crit.substituted(), 33)
-
-
-def test_pallas_interpret_long_read_fallback():
-    """engine=pallas_interpret must take the same jnp fallback as
-    engine=pallas beyond the blockwise kernel's 65536-lane ceiling
-    (previously crashed with the blockwise assert)."""
-    import numpy as np
-
-    from hpgq.kernels.stats_jnp import make_paired_stats_step, make_stats_step, zero_partials
-
-    lcap = 131072
-    step = make_stats_step(lcap, 33, False, None, jit=False,
-                           engine="pallas_interpret", wire=None)
-    codes = np.full((2, lcap), 5, np.int8)
-    codes[:, :10] = 0
-    quals = np.zeros((2, lcap), np.uint8)
-    quals[:, :10] = 40
-    lens = np.full(2, 10, np.int32)
-    acc = step(zero_partials(lcap, False), codes, quals, lens,
-               np.ones(2, bool))
-    assert int(acc["num_reads"]) == 2
-    make_paired_stats_step(lcap, 33, False, None, engine="pallas_interpret",
-                           wire=None)  # builds without the blockwise assert
 
 
 def test_bitwire_kind_inversions():

@@ -1,4 +1,4 @@
-"""Frozen golden-file byte-equality tests (VERDICT r1 #7).
+"""Frozen golden-file byte-equality tests.
 
 The reference binary cannot be built (its submodules are empty), so these
 goldens freeze the CURRENT oracle-validated output bytes of every report /

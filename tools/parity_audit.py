@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Strict-compat parity audit (VERDICT r1 #8): quantify, on a large corpus,
+"""Strict-compat parity audit: quantify, on a large corpus,
 how often each documented deviation from literal reference semantics
 ([D1] quality-key rounding, [D6] case folding, CGR >=53 single-letter runs
 — see hpgq/oracle/spec.py and hpgq/kernels/cgr.py) would actually change an

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Paired-pass per-stage attribution (VERDICT r4 #2): where does the
+"""Paired-pass per-stage attribution: where does the
 paired engine's per-read time go vs the single-end engine on the same
 machine phase?
 
